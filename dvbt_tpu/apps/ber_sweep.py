@@ -100,7 +100,8 @@ def run_point(mode, snr_db: float, n_blocks: int, seed: int = 0,
         }
 
     result = {
-        "device": "tpu" if jax.default_backend() != "cpu" else "cpu",
+        "platform": jax.devices()[0].platform,
+        "device_kind": jax.devices()[0].device_kind,
         "snr_db": snr_db,
         **stats(*acc["hp"], packets),
     }

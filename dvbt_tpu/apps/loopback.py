@@ -1,5 +1,5 @@
 """dvbt-loopback: TX -> impaired channel -> RX in one process; prints a JSON
-report.  The TPU-native analog of running the reference's TX and RX example
+report.  The analog of running the reference's TX and RX example
 flowgraphs back-to-back (SURVEY.md §4 'integration tests = example apps')."""
 
 from __future__ import annotations
@@ -42,17 +42,17 @@ def main(argv=None) -> int:
     t0 = time.time()
     for b in range(a.blocks):
         state, iq = tx(state, jnp.asarray(packets[b * n_pk:(b + 1) * n_pk]))
-        chunks.append(tsio.device_get_complex(iq))
+        chunks.append(np.asarray(iq))
     stream = np.concatenate(chunks)
     tx_s = time.time() - t0
 
     if a.cfo or a.snr is not None:
-        dev = tsio.device_put_complex(stream)
+        dev = jnp.asarray(stream)
         if a.cfo:
             dev = channel.apply_cfo(dev, a.cfo, mode.fft_len)
         if a.snr is not None:
             dev = channel.awgn(jax.random.PRNGKey(a.seed), dev, a.snr)
-        stream = tsio.device_get_complex(dev)
+        stream = np.asarray(dev)
     stream = stream[a.offset:]
 
     srx = StreamingReceiver(mode)

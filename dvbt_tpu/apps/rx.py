@@ -1,6 +1,6 @@
 """dvbt-rx: DVB-T baseband IQ file (complex64) -> MPEG-TS file.
 
-TPU-native replacement for the reference's RX flowgraph apps (SURVEY.md
+Replacement for the reference's RX flowgraph apps (SURVEY.md
 §3.2), with full acquisition: unknown timing, CFO, and frame alignment are
 recovered by the streaming front-end (ops/sync.py + models/loopback.py).
 """

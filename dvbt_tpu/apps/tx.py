@@ -1,6 +1,6 @@
 """dvbt-tx: MPEG-TS file -> DVB-T baseband IQ file (complex64, 64/7 Msps).
 
-TPU-native replacement for the reference's TX flowgraph apps (SURVEY.md
+Replacement for the reference's TX flowgraph apps (SURVEY.md
 §3.1): the whole chain runs as one jitted program per super-block.
 """
 
@@ -64,7 +64,7 @@ def main(argv=None) -> int:
             arg = (hp, jnp.asarray(packets_lp[b * n_lp:(b + 1) * n_lp])) \
                 if mode.hierarchical else hp
             state, iq = tx(state, arg)
-            sink.write(tsio.device_get_complex(iq))
+            sink.write(np.asarray(iq))
     dt = time.time() - t0
     total = n_blocks * n_samp
     print(f"tx: {n_blocks} blocks, {n_blocks * n_hp} packets, "

@@ -54,9 +54,9 @@ BLOCKS = (
           "uint8 (n,) interleaved + tail'", ("n_bytes",),
           "n_bytes must be a multiple of 204 (whole RS packets)"),
     Block("inner_coder", "dvbt_tpu.ops.inner_coder.make_inner_coder",
-          "T4 inner_coder", "uint8 (n,) info bits + 6-bit state",
-          "uint8 (n/rate,) punctured coded bits + state'",
-          ("n_bits", "code_rate")),
+          "T4 inner_coder", "uint8 (n,) info bytes + 6-bit state",
+          "uint8 (8n/rate,) punctured coded bits + state'",
+          ("n_bytes", "code_rate")),
     Block("bit_inner_interleaver",
           "dvbt_tpu.ops.bit_interleaver.make_bit_interleaver",
           "T5 bit_inner_interleaver",
@@ -104,13 +104,14 @@ BLOCKS = (
           "complex64 equalized cells", "int32 hard-decision cell values",
           ("mode",)),
     Block("viterbi_decoder",
-          "dvbt_tpu.kernels.viterbi_pallas.make_viterbi_decoder",
+          "dvbt_tpu.kernels.viterbi_triton.make_viterbi_decoder_punctured",
           "R7 viterbi_decoder (SSE2 kernel)",
-          "depunctured mother bits x/y + erasure masks + warmup state",
-          "uint8 decoded info bits + state'",
-          ("n_bits", "body", "overlap"),
-          "Pallas TPU kernel; pure-jnp reference impl in ops.viterbi; "
-          "depuncture: ops.inner_coder.make_depuncture"),
+          "uint8 punctured soft stream (0..15) + warmup state",
+          "uint8 decoded info bytes + state'",
+          ("n_bits", "rate", "body", "overlap"),
+          "Pallas (Triton) GPU kernel; pure-jnp reference impl in "
+          "ops.viterbi (make_viterbi_decoder after "
+          "ops.inner_coder.make_depuncture)"),
     Block("convolutional_deinterleaver",
           "dvbt_tpu.ops.outer_interleaver.make_outer_deinterleaver",
           "R8 convolutional_deinterleaver",

@@ -1,7 +1,7 @@
-"""Pallas TPU kernels for the hot DSP paths (SURVEY.md §7 step 6).
+"""Hand-written GPU kernels for the hot DSP paths (SURVEY.md §7 step 6).
 
-Currently: the overlapped-block Viterbi decoder (viterbi_pallas) — the
-TPU-native replacement for the reference's SSE2 ACS kernel.
+Currently: the overlapped-window Viterbi decoder (viterbi_triton), Pallas
+through Triton — the GPU replacement for the reference's SSE2 ACS kernel.
+Modules are imported on use, so importing the package needs no kernel
+backend.
 """
-
-from . import viterbi_pallas  # noqa: F401

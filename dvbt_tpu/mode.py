@@ -1,4 +1,4 @@
-"""DvbtMode — the central mode/config object (TPU-native analog of the
+"""DvbtMode — the central mode/config object (the analog of the
 reference's `dvbt_config`, SURVEY.md §2.3 S1: `include/dvbt/dvbt_config.h` +
 `lib/dvbt_configure.cc` [unverified — mount empty]).
 

@@ -3,7 +3,7 @@
 The reference's `demod_reference_signals` decodes TPS and can derive the
 constellation/hierarchy/code rates without being told them (SURVEY.md R3:
 "decodes TPS -> can auto-detect constellation/rate").  This module is the
-TPU-native version: a receiver that needs to know only the transmission mode
+accelerator version: a receiver that needs to know only the transmission mode
 (2K/8K — the FFT size is physical and must be assumed to sample the channel)
 and finds everything else itself:
 
@@ -28,7 +28,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..mode import SYMBOLS_PER_FRAME, DvbtMode, GUARDS
-from ..io import ts as tsio
 from ..ops import ofdm, reference_signals, sync as syncop
 from .. import tables
 from .loopback import StreamingReceiver, StreamReport
@@ -87,7 +86,7 @@ def detect_guard(samples: np.ndarray, transmission: str,
     if n < 3 * N:
         raise DetectionError(
             f"need >= {3 * N} samples for guard detection, got {len(samples)}")
-    iq = tsio.device_put_complex(np.asarray(samples[:n], np.complex64))
+    iq = jnp.asarray(np.asarray(samples[:n], np.complex64))
     scores = {}
     for g, frac in GUARDS.items():
         scorer = _make_guard_scorer(N, int(N * frac), n)
@@ -135,7 +134,7 @@ def detect_mode(samples: np.ndarray, transmission: str,
             f"need >= {need} samples for TPS detection, got {len(samples)}")
     synchronize = syncop.make_synchronizer(placeholder, need, 1)
     aligned, sinfo = synchronize(
-        tsio.device_put_complex(np.asarray(samples[:need], np.complex64)))
+        jnp.asarray(np.asarray(samples[:need], np.complex64)))
     demod = ofdm.make_ofdm_demodulator(placeholder, SYMBOLS_PER_FRAME)
     tps_dec = reference_signals.make_tps_decoder(placeholder)
     bits, _ = tps_dec(demod(aligned.reshape(1, -1))[0])

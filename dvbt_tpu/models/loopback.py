@@ -5,7 +5,7 @@ Reference behavior: the lock/re-acquire state machine of
 `demod_reference_signals` (SURVEY.md R1/R3, §5.3 "signal-level fault
 tolerance") [unverified — mount empty].
 
-TPU-native design (SURVEY.md §7 design stance): all per-sample work happens
+Design (SURVEY.md §7 design stance): all per-sample work happens
 in two jitted programs — `sync` (full search, run only when unlocked) and
 `track_rx` (NCO derotation fused with the symbol-aligned decode chain, the
 locked steady state).  The FSM itself is a few dozen lines of host Python
@@ -32,7 +32,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..mode import SYMBOLS_PER_FRAME, DvbtMode
-from ..io import ts as tsio
 from ..ops import sync as syncop
 from ..utils.cplx import cis
 from . import rx as rxm
@@ -81,17 +80,15 @@ class StreamingReceiver:
         rx, self.n_packets, _ = rxm.make_receiver(mode, n_frames,
                                                   metrics=metrics)
         self.rx = rx
-        # ONE fused locked-path program: float-pair assembly (complex64 H2D
-        # is unimplemented on some backends), continuous-NCO derotation with
-        # the SCO skip folded into the entry phase, then the full decode
-        # chain — 1 dispatch per block instead of 3
+        # ONE fused locked-path program: continuous-NCO derotation with the
+        # SCO skip folded into the entry phase, then the full decode chain
+        # — 1 dispatch per block instead of 2
         N, n_out = mode.fft_len, self.block_samples
 
         from ..ops import reference_signals as refsig
         retime_tail = refsig.make_chan_tail_retimer(mode)
 
-        def _track_rx(rx_state, pairs, cfo_frac, cfo_int, phase, adj):
-            iq = jax.lax.complex(pairs[:, 0], pairs[:, 1])
+        def _track_rx(rx_state, iq, cfo_frac, cfo_int, phase, adj):
             cfo = cfo_frac + cfo_int.astype(jnp.float32)
             phase = phase - 2.0 * np.pi * cfo * adj.astype(jnp.float32) / N
             n = jnp.arange(n_out, dtype=jnp.float32)
@@ -107,8 +104,6 @@ class StreamingReceiver:
             return rx_state, phase1, ts, metrics
 
         self.track_rx = jax.jit(_track_rx)
-        self._c2pairs = jax.jit(
-            lambda c: jnp.stack([c.real, c.imag], axis=-1))
         self.pipeline = pipeline
         self._inflight: collections.deque = collections.deque()
         self._pending_adj = 0    # SCO samples to skip at the next dispatch
@@ -194,9 +189,7 @@ class StreamingReceiver:
 
     def _dispatch(self) -> None:
         """Locked steady state: enqueue one fused track+decode program."""
-        view = self._peek(self.block_samples)
-        pairs = np.ascontiguousarray(view).view(np.float32).reshape(-1, 2)
-        dev = jnp.asarray(pairs)                      # async H2D
+        dev = jnp.asarray(self._peek(self.block_samples))   # async H2D
         self.rx_state, self.phase, ts, metrics = self.track_rx(
             self.rx_state, dev, self.cfo_frac, self.cfo_int, self.phase,
             jnp.int32(self._applied_adj))
@@ -210,7 +203,7 @@ class StreamingReceiver:
     def _acquire(self) -> StreamReport:
         """Unlocked: full search, then decode the first block synchronously
         through the same fused program (zero rotation)."""
-        capture = tsio.device_put_complex(self._peek(self.capture_samples))
+        capture = jnp.asarray(self._peek(self.capture_samples))
         aligned, info = self.sync(capture)
         self.cfo_frac = info["cfo_frac"]
         self.cfo_int = info["cfo_int"]
@@ -239,7 +232,7 @@ class StreamingReceiver:
         # `aligned` is already fully CFO-corrected: run it through track_rx
         # with zero rotation so the receiver compiles ONE decode program
         self.rx_state, _, ts, metrics = self.track_rx(
-            self.rx_state, self._c2pairs(aligned),
+            self.rx_state, aligned,
             jnp.float32(0.0), jnp.int32(0), jnp.float32(0.0), jnp.int32(0))
         return self._make_report(block_off, True, ts, metrics)
 

@@ -52,8 +52,8 @@ def init_rx_state(mode: DvbtMode,
     boundary window, descrambler phase lock (per stream), channel-estimator
     pilot history (3 symbols, reference-density time interpolation).  The
     Viterbi tail length is `effective_overlap(rate, overlap)` — byte- and
-    puncture-phase aligned so the SAME pytree drives the jnp and the fused
-    Pallas decoders (checkpoints are implementation-independent)."""
+    puncture-phase aligned so the SAME pytree drives the jnp scan and the
+    Pallas kernel (checkpoints are implementation-independent)."""
     state = _init_stream_state(mode.code_rate, overlap)
     tail, valid = reference_signals.init_time_channel_state(mode)
     state["chan_tail"] = tail
@@ -63,14 +63,17 @@ def init_rx_state(mode: DvbtMode,
     return state
 
 
-def _resolve_viterbi_impl(impl: str) -> str:
-    """'auto' -> the Pallas TPU kernels off-CPU, the jnp scan on CPU
-    (override with DVBT_VITERBI=jnp|pallas)."""
+VITERBI_IMPLS = ("jnp", "pallas", "pallas-interpret")
+
+
+def _resolve_viterbi_impl(impl: str, platform: str | None = None) -> str:
+    """'auto' -> the Pallas (Triton) kernel on a GPU, the jnp scan on any
+    other platform (default: the platform of jax's default backend)."""
     if impl == "auto":
-        import os
-        impl = os.environ.get("DVBT_VITERBI", "")
-        if not impl:
-            impl = "jnp" if jax.default_backend() == "cpu" else "pallas"
+        if platform is None:
+            platform = jax.default_backend()
+        impl = "pallas" if platform == "gpu" else "jnp"
+    assert impl in VITERBI_IMPLS, impl
     return impl
 
 
@@ -86,12 +89,11 @@ def _make_stream_decoder(mode: DvbtMode, stream: str, n_blocks: int,
 
     impl = _resolve_viterbi_impl(viterbi_impl)
     if impl.startswith("pallas"):
-        # fused depuncture + ACS + byte-packing traceback: the coded soft
-        # stream is the ONLY HBM input, decoded bytes the only output
-        # ("pallas-interpret" runs the kernel in interpreter mode — the
-        # CPU-CI path for full-receiver parity, tests/test_viterbi_pallas.py)
-        from ..kernels import viterbi_pallas
-        decode_bytes = viterbi_pallas.make_viterbi_decoder_punctured(
+        # ACS + traceback in one kernel launch, decoded bytes out
+        # ("pallas-interpret" runs it in the Pallas interpreter: the CPU
+        # path for full-receiver parity, tests/test_fused_chain.py)
+        from ..kernels import viterbi_triton
+        decode_bytes = viterbi_triton.make_viterbi_decoder_punctured(
             n_info_bits, rate, viterbi_body, overlap,
             interpret=impl.endswith("-interpret"))
     else:
@@ -108,11 +110,9 @@ def _make_stream_decoder(mode: DvbtMode, stream: str, n_blocks: int,
 
     out_dilv = outer_interleaver.make_outer_deinterleaver(n_bytes)
     rs_dec = reed_solomon.make_rs_decoder()
-    # RS decode in ~252-codeword chunks via lax.map: one full-batch decode
-    # anti-scales on TPU (the bit-sliced BM intermediates blow the
-    # fusion/VMEM sweet spot at large batch).  r5 grid at the bench shape
-    # (4032 cw x mux 8): full 15.6 / map2 13.1 / map4 8.9 / map8 6.7 /
-    # map16 5.6 / map32 6.1 ms -> target <=256 per chunk.
+    # RS decode in <=256-codeword chunks via lax.map: the chunking was
+    # tuned on the chain's first platform, where one full-batch decode
+    # anti-scaled; not re-tuned on the GPU yet.
     import os as _os
     rs_target = int(_os.environ.get("DVBT_RS_CHUNK", "256"))
     n_rs_chunks = 1
@@ -273,10 +273,10 @@ def make_receiver(mode: DvbtMode, n_frames: int | None = None,
         if full_metrics:
             # MER / SNR estimate (SURVEY.md §5.5 observability): error power
             # of the equalized payload cells vs their hard decisions.  (A
-            # masked full-board formulation that skips the second permutation
-            # was measured SLOWER in-situ — 2.56 ms vs 0.73 — because reusing
-            # the demap output for both consumers blocks XLA's
-            # demap+deinterleave fusion; keep the permutation form.)
+            # masked full-board formulation that skips the second
+            # permutation measured slower on the chain's first platform:
+            # reusing the demap output for both consumers blocked the
+            # demap+deinterleave fusion.  Not re-measured on the GPU.)
             X_cells = cell_dilv(X)
             p_hat = qmap_points(cells)
             err = X_cells - p_hat

@@ -33,7 +33,6 @@ from ..ops import (
     reed_solomon,
     reference_signals,
 )
-from ..utils import bits as bitutils
 
 # frames per lax.map chunk for the symbol-domain TX stages (0 = one-shot
 # full batch); A/B-measured on hardware before changing the default
@@ -58,29 +57,6 @@ def init_tx_state(mode: DvbtMode) -> dict:
     return state
 
 
-def _pick_coder(n_bytes: int, rate: str):
-    """Byte-stream -> coded-bits stage: the fused Pallas kernel off-CPU
-    (byte-packed mother code + puncture, kernels/coder_pallas), the jnp
-    bytes_to_bits + inner_coder composition on CPU.  Same (6,)-bit carried
-    state either way (time_sharding's halo recompute stays valid)."""
-    import os
-    impl = os.environ.get("DVBT_CODER", "")
-    if not impl:
-        impl = "jnp" if jax.default_backend() == "cpu" else "pallas"
-    if impl.startswith("pallas"):
-        # "pallas-interpret" = interpreter-mode kernel, the CPU-CI path for
-        # full-transmitter parity (tests/test_coder_pallas.py)
-        from ..kernels import coder_pallas
-        return coder_pallas.make_byte_coder(
-            n_bytes, rate, interpret=impl.endswith("-interpret"))
-    coder = inner_coder.make_inner_coder(n_bytes * 8, rate)
-
-    def apply(state6, stream_bytes):
-        return coder(state6, bitutils.bytes_to_bits(stream_bytes))
-
-    return apply
-
-
 def _make_stream_pipeline(mode: DvbtMode, stream: str, n_blocks: int):
     """Per-stream bit pipeline: TS packets -> coded bits (T1..T4)."""
     n_packets = mode.stream_packets_per_block(stream) * n_blocks
@@ -90,7 +66,7 @@ def _make_stream_pipeline(mode: DvbtMode, stream: str, n_blocks: int):
     disperse = energy.make_energy_dispersal(n_packets)
     rs_enc = reed_solomon.make_rs_encoder()
     out_ilv = outer_interleaver.make_outer_interleaver(n_bytes)
-    coder = _pick_coder(n_bytes, rate)
+    coder = inner_coder.make_inner_coder(n_bytes, rate)
 
     def run(state: dict, packets: jnp.ndarray):
         with jax.named_scope("energy_dispersal"):
@@ -166,11 +142,10 @@ def make_transmitter(mode: DvbtMode, n_frames: int | None = None,
             with jax.named_scope("frame_build"):
                 return jax.vmap(builder)(fi, points)  # (f, 68, K)
 
-        # full-batch symbol processing ANTI-SCALES on TPU (frame-build
-        # measured 0.67 ms at 1 frame but 7.4 at 4 — same VMEM/fusion
-        # phenomenon as RS decode, r4); lax.map in frame chunks restores
-        # the small-shape rate.  chunk = n_frames reproduces the one-shot
-        # program exactly.
+        # optional lax.map over frame chunks (DVBT_TX_CHUNK): full-batch
+        # symbol processing anti-scaled on the chain's first platform; not
+        # re-tuned on the GPU.  chunk = n_frames reproduces the
+        # one-shot program exactly.
         chunk = _TX_CHUNK or n_frames
         if chunk >= n_frames:
             carriers = frame_chain((per_sym, fidx))

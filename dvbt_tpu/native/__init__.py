@@ -2,14 +2,17 @@
 
 The reference's runtime services (GNU Radio's circular buffers and the
 sync-byte search of R8/R10) are C++; this module is their equivalent here —
-compiled on first use with g++ into a cached shared object and bound with
-ctypes (no pybind11 in the image).  Pure-python fallbacks keep everything
-working where a toolchain is unavailable.
+compiled on first use with g++ into a shared object and bound with ctypes
+(no pybind11 needed).  The object's file name carries a hash of the source
+and the compiler flags, so a checkout only ever loads a library built from
+its own committed source.  Pure-python fallbacks keep everything working
+where a toolchain is unavailable.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import tempfile
@@ -18,24 +21,32 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "ringbuffer.cc")
-_LIB_PATH = os.path.join(_DIR, "_libdvbt_native.so")
+_BUILD_DIR = os.path.join(_DIR, "_build")
+_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 _lib = None
 _build_error: str | None = None
 
 
+def lib_path() -> str:
+    """Build product for the current source + flags (content-addressed)."""
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(_FLAGS).encode())
+    return os.path.join(_BUILD_DIR, f"libdvbt_native_{h.hexdigest()[:16]}.so")
+
+
 def _build() -> str:
-    os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
-    if (os.path.exists(_LIB_PATH)
-            and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC)):
-        return _LIB_PATH
+    path = lib_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(_BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory() as td:
         tmp = os.path.join(td, "lib.so")
-        subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-             "-o", tmp, _SRC],
-            check=True, capture_output=True, text=True)
-        os.replace(tmp, _LIB_PATH)
-    return _LIB_PATH
+        subprocess.run(["g++", *_FLAGS, "-o", tmp, _SRC],
+                       check=True, capture_output=True, text=True)
+        os.replace(tmp, path)
+    return path
 
 
 def _load():

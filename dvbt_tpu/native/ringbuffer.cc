@@ -2,7 +2,7 @@
 // reference delegates buffering and stream alignment to the GNU Radio C++
 // runtime — lock-free single-writer circular buffers between blocks and the
 // sync-byte search in convolutional_deinterleaver / energy_descramble
-// [unverified — mount empty]).  This is the TPU framework's equivalent:
+// [unverified — mount empty]).  This is the framework's equivalent:
 // a contiguous-read ring buffer feeding device-sized super-blocks, and an
 // MPEG-TS framer that re-aligns 188-byte packets in arbitrary byte streams.
 //

@@ -4,16 +4,16 @@ block interleavers, fused with cell packing.
 Reference behavior: `lib/bit_inner_interleaver_impl.cc` [unverified — mount
 empty]; spec: EN300744 §4.3.4.1.
 
-TPU-native design: demux, the six cyclic block interleavers, and the
-bits->cell packing compose into ONE static permutation that is identical
-for every 126-cell block.  Rather than a minor-axis gather/scatter (slow on
-TPU — measured 2.1-2.4 ms per step in the fused programs), the per-block
+Design: demux, the six cyclic block interleavers, and the bits->cell
+packing compose into ONE static permutation that is identical for every
+126-cell block.  Rather than a minor-axis gather/scatter (slow on the
+chain's first platform; not re-measured on the GPU), the per-block
 permutation is materialized as a small one-hot matrix and applied as a
-batched (..., 126v) @ (126v, ·) bf16 matmul on the MXU; the cell packing
-weights (2^(v-1-j)) fold into the same matrix, so interleave+pack is one
-matmul.  All values (bits, 4-bit soft metrics, weights up to 32) are exactly
-representable in bf16 and the MXU accumulates in f32, so the result is
-exact.  Stateless.
+batched (..., 126v) @ (126v, ·) bf16 matmul; the cell packing weights
+(2^(v-1-j)) fold into the same matrix, so interleave+pack is one matmul.
+All values (bits, 4-bit soft metrics, weights up to 32) are exactly
+representable in bf16 and accumulate in f32, so the result is exact at any
+matmul precision (TF32 included).  Stateless.
 """
 
 from __future__ import annotations
@@ -27,17 +27,17 @@ import numpy as np
 from .. import tables
 from ..mode import DvbtMode
 
-# MXU operand dtype for the permutation matmuls: bf16 (default) or int8
-# (v5e's int8 MXU path runs at 2x the bf16 rate; every value here — bits,
-# 4-bit soft metrics, pack weights <= 32, cells <= 63, scale 15 — is exactly
-# representable in int8 with int32 accumulation).  Resolved once at import;
-# A/B-measured on hardware before changing the default.
+# operand dtype for the permutation matmuls: bf16 (default) or int8 (every
+# value here — bits, 4-bit soft metrics, pack weights <= 32, cells <= 63,
+# scale 15 — is exactly representable in int8 with int32 accumulation).
+# Resolved once at import; A/B-measured on the card before changing the
+# default.
 ILV_DTYPE = os.environ.get("DVBT_ILV", "bf16")
 
 
 def _perm_matmul(x, M_np, dtype=None):
-    """x (…, K) small exact ints -> x @ M, through the configured MXU
-    operand dtype; result float32/int32 per the path, exact either way."""
+    """x (…, K) small exact ints -> x @ M, through the configured operand
+    dtype; result float32/int32 per the path, exact either way."""
     d = ILV_DTYPE if dtype is None else dtype
     if d == "int8":
         lhs = x.astype(jnp.int8)

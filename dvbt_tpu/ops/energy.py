@@ -3,7 +3,7 @@
 Reference behavior: `lib/energy_dispersal_impl.cc`, `lib/energy_descramble_impl.cc`
 [unverified — mount empty]; spec: EN300744 §4.3.1.
 
-TPU-native design: the streaming per-bit LFSR of the reference collapses into
+Design: the streaming per-bit LFSR of the reference collapses into
 a precomputed (8, 188) XOR pattern (one row per packet position within the
 8-packet dispersal group).  A whole block of packets is scrambled with one
 gather + XOR; the only carried state is the group phase (int32 scalar).

@@ -4,10 +4,10 @@ Reference behavior: `lib/inner_coder_impl.cc` and the depuncture half of
 `lib/viterbi_decoder_impl.cc` [unverified — mount empty]; spec: EN300744
 §4.3.3 (G1=171o, G2=133o, Table 3 puncturing).
 
-TPU-native design: the bit-serial shift register becomes five vectorized
-XORs of shifted views of the whole bit block (pure VPU work); puncturing and
-depuncturing become static gather / scatter index arrays precomputed from the
-periodic Table 3 patterns.  Carried state: the last 6 input bits.
+Design: the bit-serial shift register becomes five XORs of byte-aligned
+shifted views of the whole byte block (elementwise work that XLA fuses);
+puncturing and depuncturing become static column slices of the periodic
+Table 3 patterns.  Carried state: the last 6 input bits.
 """
 
 from __future__ import annotations
@@ -18,53 +18,46 @@ import numpy as np
 
 from .. import tables
 
-K = 7
-G1_IDX = (6, 5, 4, 3, 0)  # taps as indices into concat(state6, bits): i + 6 - delay
-G2_IDX = (6, 4, 3, 1, 0)
 
+def make_inner_coder(n_bytes: int, rate: str):
+    """Returns apply(state6, stream_bytes) -> (state6', coded_bits).
 
-def _encode_mother(state: jnp.ndarray, b: jnp.ndarray):
-    """state (6,) oldest-first?  We store the last 6 bits in stream order.
+    stream_bytes: uint8 (n_bytes,) byte stream, serialized MSB-first.
+    state6: uint8 (6,) the last 6 input bits, oldest first.
+    coded_bits: uint8 {0,1} (n_bytes * 8 * den / num,) after rate num/den
+    puncturing, in transmitted serial order.
 
-    full = [b_{n-6} .. b_{n-1}, b_n, ...]; output step i uses window
-    full[i : i+7] with full[i+6] the current bit.
-    """
-    full = jnp.concatenate([state, b], axis=-1)
-    n = b.shape[-1]
-
-    def taps(idx):
-        acc = full[..., idx[0] : idx[0] + n]
-        for t in idx[1:]:
-            acc = acc ^ full[..., t : t + n]
-        return acc
-
-    x = taps(G1_IDX)
-    y = taps(G2_IDX)
-    return b[..., -6:], x, y
-
-
-def make_inner_coder(n_bits: int, rate: str):
-    """Returns apply(state6, bits) -> (state6', coded_bits).
-
-    bits: uint8 (n_bits,) info bits (MSB-first serialized upstream).
-    coded_bits: (n_bits * den / num,) after rate num/den puncturing.
+    The mother code runs on PACKED bytes: tap d of the shift register is
+    the byte-aligned shifted stream T_d = (prev << (8-d) | cur >> d) & 0xFF,
+    so x = T0^T1^T2^T3^T6 and y = T0^T2^T3^T5^T6 (G1=171o, G2=133o); bits
+    are expanded only for the puncture.  (Measured on an H100 against the
+    bit-level form, which XOR'd shifted views of the unpacked bit stream:
+    slightly faster in the fused TX+RX step, PERF.md.)
     """
     order = tables.puncture_serial_order(rate)
     period = len(tables.PUNCTURE[rate][0])
+    n_bits = n_bytes * 8
     assert n_bits % period == 0, (n_bits, period)
     n_blk = n_bits // period
+    w6 = np.asarray([32, 16, 8, 4, 2, 1], np.int32)
+    sh = np.arange(7, -1, -1, dtype=np.int32)
 
-    def apply(state: jnp.ndarray, b: jnp.ndarray):
-        state, x, y = _encode_mother(state, b)
-        # periodic puncture as static column slices (a 2*n_bits gather costs
-        # ~20 ms on TPU; this is pure layout work).  Serial position o reads
-        # x bit o//2 when o is even, else y bit o//2.
-        xb = x.reshape(*b.shape[:-1], n_blk, period)
-        yb = y.reshape(*b.shape[:-1], n_blk, period)
-        cols = [xb[..., o // 2] if o % 2 == 0 else yb[..., o // 2]
+    def apply(state: jnp.ndarray, stream: jnp.ndarray):
+        cur = stream.astype(jnp.int32)
+        hb = jnp.sum(state.astype(jnp.int32) * w6)[None]
+        prev = jnp.concatenate([hb, cur[:-1]])
+
+        def tap(d):
+            return cur if d == 0 else ((prev << (8 - d)) | (cur >> d)) & 0xFF
+
+        common = tap(0) ^ tap(2) ^ tap(3) ^ tap(6)
+        xb = (((common ^ tap(1))[:, None] >> sh) & 1).reshape(n_blk, period)
+        yb = (((common ^ tap(5))[:, None] >> sh) & 1).reshape(n_blk, period)
+        cols = [xb[:, o // 2] if o % 2 == 0 else yb[:, o // 2]
                 for o in order]
-        coded = jnp.stack(cols, axis=-1).reshape(*b.shape[:-1], -1)
-        return state, coded
+        coded = jnp.stack(cols, axis=-1).reshape(-1).astype(jnp.uint8)
+        new_state = ((cur[-1] >> sh[2:]) & 1).astype(jnp.uint8)
+        return new_state, coded
 
     return jax.jit(apply)
 
@@ -88,10 +81,9 @@ def make_depuncture(n_info_bits: int, rate: str):
     rank_np[np.asarray(order)] = np.arange(n_keep)
 
     def depuncture(coded: jnp.ndarray):
-        # column-slice formulation: any gather/scatter over the 2*n_info
-        # stream is catastrophically slow on TPU (tens of ms + minutes of
-        # compile); the pattern is periodic, so reshape to (n_blk, n_keep)
-        # and rebuild the mother columns from static strided slices.
+        # column-slice formulation: the pattern is periodic, so reshape to
+        # (n_blk, n_keep) and rebuild the mother columns from static strided
+        # slices (no gather/scatter over the 2*n_info stream).
         c = coded.reshape(*coded.shape[:-1], n_blk, n_keep)
         zeros = jnp.zeros(c.shape[:-1], coded.dtype)
         cols = [zeros if rank_np[r] < 0 else c[..., rank_np[r]]

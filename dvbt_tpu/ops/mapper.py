@@ -4,11 +4,11 @@ Reference behavior: `lib/dvbt_map_impl.cc`, `lib/dvbt_demap_impl.cc`
 [unverified — mount empty]; spec: EN300744 §4.3.5 Fig 9 + normalization
 table (uniform and hierarchical alpha in {1,2,4}).
 
-TPU-native design: mapping is a table gather (2^v complex points indexed by
-cell value).  Hard demapping is an argmax of the inner-product score
-2*Re(y c̄) - |c|^2 over all points, computed as ONE real (N,2)x(2,2^v)
-matmul on the MXU — the argmax index IS the cell value, so no inverse-Gray
-bit fiddling is needed.  Matches the reference's hard-decision nearest-point
+Design: mapping is a one-hot matmul against separable per-axis level tables
+(2^v complex points indexed by cell value).  Hard demapping is per-axis
+scaled rounding (make_demapper); the soft demapper scores every point with
+the inner product 2*Re(y c̄) - |c|^2, ONE real (N,2)x(2,2^v) matmul.
+Matches the reference's hard-decision nearest-point
 rule exactly (SURVEY.md §7 hard part 6) and extends to the hierarchical
 (non-square) constellations for free.
 """
@@ -27,8 +27,9 @@ def make_mapper(mode: DvbtMode):
 
     DVB-T constellations are separable: the I coordinate depends only on the
     even-position bits and Q on the odd ones [EN300744 Fig 9], so the 2^v
-    table splits into two 2^(v/2) level tables — a 64-entry table gather on
-    411k cells costs ~4.5 ms on TPU, the matmuls are ~0.1 ms.
+    table splits into two 2^(v/2) level tables, applied as one-hot matmuls
+    instead of a data-dependent table gather (slow on the chain's first
+    platform; not re-measured on the GPU).
     """
     table = mode.constellation_table().astype(np.complex64)
     v = mode.v
@@ -58,9 +59,13 @@ def make_mapper(mode: DvbtMode):
             qq = qq | (((c >> (v - 2 - 2 * b)) & 1) << (h - 1 - b))
         oh_i = (ii[..., None] == jnp.arange(2 ** h)).astype(jnp.float32)
         oh_q = (qq[..., None] == jnp.arange(2 ** h)).astype(jnp.float32)
+        # HIGHEST: a GPU may run a float32 product in TF32, which would
+        # round the constellation levels
         re = jnp.dot(oh_i, jnp.asarray(i_levels),
+                     precision=jax.lax.Precision.HIGHEST,
                      preferred_element_type=jnp.float32)
         im = jnp.dot(oh_q, jnp.asarray(q_levels),
+                     precision=jax.lax.Precision.HIGHEST,
                      preferred_element_type=jnp.float32)
         return (re + 1j * im).astype(jnp.complex64)
 
@@ -101,7 +106,9 @@ def make_soft_demapper(mode: DvbtMode):
                    ) -> jnp.ndarray:
         yr = jnp.stack([y.real, y.imag], axis=-1).astype(jnp.float32)
         # score_c = 2*Re(y conj(c)) - |c|^2 = |y|^2 - |y - c|^2
-        score = jnp.dot(yr, pts, preferred_element_type=jnp.float32) \
+        # HIGHEST: TF32 would perturb the LLRs (soft decode != CPU's)
+        score = jnp.dot(yr, pts, precision=jax.lax.Precision.HIGHEST,
+                        preferred_element_type=jnp.float32) \
             - half_norm                                    # (..., 2^v)
         outs = []
         for b in range(v):

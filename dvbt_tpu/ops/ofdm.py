@@ -5,7 +5,7 @@ Reference behavior: T9/R2 are *external* blocks in the reference flowgraphs
 SURVEY.md §2.1 T9); R1 is `lib/ofdm_sym_acquisition_impl.cc` [unverified —
 mount empty]; spec: EN300744 §4.4 + Table 5.
 
-TPU-native design: `jnp.fft` with norm="ortho" (XLA-native FFT on the whole
+Design: `jnp.fft` with norm="ortho" (XLA-native FFT on the whole
 68-symbol frame at once); carrier<->bin layout is a single static gather.
 Acquisition (R1) replaces the reference's per-sample streaming correlator +
 lock FSM with a batched moving-sum CP correlation over a whole super-block,
@@ -34,27 +34,27 @@ def _bin_map(mode: DvbtMode) -> np.ndarray:
 
 import os as _os
 
-# FFT backend for the OFDM hot path: "jnp" (XLA's native FFT) or "matmul"
-# (two-stage Cooley-Tukey as MXU matmuls, below).  Resolved once at import;
-# A/B-measured on hardware before changing the default.
+# FFT backend for the OFDM hot path: "jnp" (XLA's native FFT, cuFFT on a
+# GPU) or "matmul" (two-stage Cooley-Tukey as matmuls, below).  Resolved
+# once at import; A/B-measured on the card before changing the default.
 FFT_IMPL = _os.environ.get("DVBT_FFT", "jnp")
-# MXU f32 emulation passes for the matmul FFT: "highest" (6-pass, ~f32
-# round-off) or "high" (3-pass bf16, relative error ~2^-21 — still orders
-# of magnitude below any hard-decision margin).
+# precision of the matmul FFT: "highest" (full f32) or "high" (bf16x3,
+# relative error ~2^-21 — still orders of magnitude below any
+# hard-decision margin).
 FFT_PRECISION = _os.environ.get("DVBT_FFT_PRECISION", "highest")
 
 
 def make_matmul_fft(n: int, inverse: bool = False):
-    """DFT of length n = n1*n2 as two batched MXU matmuls (norm="ortho").
+    """DFT of length n = n1*n2 as two batched matmuls (norm="ortho").
 
     Decimation-in-time Cooley-Tukey with x[n1*N2 + n2] = A[n1, n2]:
     stage 1 contracts an (n1, n1) DFT matrix over the major axis, the
     twiddle e^{±2πi k1 n2 / n} fuses elementwise, stage 2 contracts an
     (n2, n2) DFT matrix over the minor axis, and the k2-major output
-    reorder is a transpose.  ~9x the FLOPs of an FFT but they run on the
-    MXU at full f32 precision (precision="highest"), where XLA's TPU FFT
-    often underperforms — candidate for VERDICT r3 next-step 8, adopted
-    only if the on-chip A/B wins.
+    reorder is a transpose.  ~9x the FLOPs of an FFT, run as dense matrix
+    products at full f32 precision (precision="highest"); it was chosen
+    on the chain's first platform, whose FFT underperformed.
+    On a GPU it is an option to A/B against cuFFT, not the default.
     """
     assert n % 2 == 0
     n1 = 128 if n % (128 * 128) == 0 else 64

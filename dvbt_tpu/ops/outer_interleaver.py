@@ -4,15 +4,14 @@ Reference behavior: `lib/convolutional_interleaver_impl.cc`,
 `lib/convolutional_deinterleaver_impl.cc` [unverified — mount empty]; spec:
 EN300744 §4.3.1 Fig 5.
 
-TPU-native design: byte i of the stream passes through branch j = i mod 12
+Design: byte i of the stream passes through branch j = i mod 12
 with delay j*17 branch-cells = j*204 stream bytes (204 = 12*17 = one RS
 packet, so packet starts always hit branch 0 — the sync-alignment the
 reference enforces by construction).  On the (packets, 204) board this
 means column p of every packet is a pure PACKET-ROW delay of d(p mod 12)
 rows: the whole op is 12 free major-axis row slices of the tail-extended
 board blended by a static column mask — no gathers, no minor-axis strided
-relayouts (a stride-12 column extraction measured 2.5 ms per fused step on
-hardware; this form is bandwidth-bound).  Carried state is the last 2244
+relayouts (this form is bandwidth-bound).  Carried state is the last 2244
 bytes of input history (11 * 204 — SURVEY.md §5.4's "interleaver FIFO
 tail" pytree leaf).
 """

@@ -1,8 +1,8 @@
-"""TPU-fast static permutations along the carrier/cell axis.
+"""Static permutations along the carrier/cell axis as major-axis row takes.
 
-XLA lowers minor-axis gathers with per-row indices to ~50 Melem/s scalar
-code on TPU, but a gather along the MAJOR axis (row take) is a vectorized
-copy (measured 48x faster — see bench_gather.py).  DVB-T's per-symbol
+A gather along the MAJOR axis (row take) is a plain vectorized copy, where a
+minor-axis gather with per-row indices was scalar code on the chain's first
+platform (not re-measured on the GPU).  DVB-T's per-symbol
 permutations depend only on the symbol index mod 4 (scattered-pilot phase ×
 even/odd interleave parity), so every (68, K) -> (68, P) permutation is done
 phase-major: reshape to (17, 4, K), move the gathered axis to the front, do

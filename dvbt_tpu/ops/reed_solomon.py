@@ -4,10 +4,10 @@ Reference behavior: `lib/reed_solomon_enc_impl.cc`, `lib/reed_solomon_dec_impl.c
 shared GF core `lib/reed_solomon.cc` [unverified — mount empty]; spec:
 EN300744 §4.3.2 (shortened RS(255,239), p(x)=0x11D, g(x)=prod(x+a^i), i<16).
 
-TPU-native design (NOT a translation of the byte-serial LFSR/BM C++):
+Design (NOT a translation of the byte-serial LFSR/BM C++):
 
 * Encode: RS parity is GF(2)-linear in the message bits, so the whole encoder
-  is one binary matmul on the MXU: ``parity = (msg_bits @ M) mod 2`` with the
+  is one binary matmul: ``parity = (msg_bits @ M) mod 2`` with the
   (1504, 128) matrix precomputed in tables.rs_encode_bitmatrix().  Batch of
   packets = batch dim of the matmul.
 * Syndromes: same trick with a (1632, 128) matrix.
@@ -19,8 +19,10 @@ TPU-native design (NOT a translation of the byte-serial LFSR/BM C++):
   bits); Forney's division via bit-sliced Frobenius inversion.
 
 All on-device GF(2^8) arithmetic is bit-sliced GF(2) linear algebra (see the
-section below) — data-dependent log/exp table gathers are ~50 Melem/s on TPU
-and would dominate the whole receiver.
+section below) instead of data-dependent log/exp table gathers, which were
+slow on the chain's first platform (a table-gather form is an open A/B on
+the GPU).  Every matmul here multiplies {0,1} operands and sums
+far below 2^24 in f32, so it is exact at any precision, TF32 included.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ RS_N, RS_K, RS_T = tables.RS_N, tables.RS_K, tables.RS_T
 
 
 def _mod2_matmul(x_bits: jnp.ndarray, m: jnp.ndarray) -> jnp.ndarray:
-    """(..., n) {0,1} @ (n, k) {0,1} -> (..., k) {0,1} via MXU f32 matmul."""
+    """(..., n) {0,1} @ (n, k) {0,1} -> (..., k) {0,1} via an f32 matmul."""
     acc = jnp.dot(
         x_bits.astype(jnp.bfloat16),
         m,
@@ -62,15 +64,15 @@ def make_rs_encoder():
 
 # --- bit-sliced GF(256) ------------------------------------------------------
 #
-# TPU has no fast data-dependent gather, so log/exp table lookups (the
-# reference's GF core, SURVEY.md S3) are replaced by GF(2) linear algebra:
+# log/exp table lookups (the reference's GF core, SURVEY.md S3) are
+# replaced by GF(2) linear algebra:
 #   * mul by a CONSTANT is linear in the bits  -> (8, 8) matrix over GF(2)
 #   * squaring is linear (Frobenius)           -> one fixed (8, 8) matrix
 #   * general mul is bilinear                  -> (64, 8) matrix on the outer
 #     product of the bit vectors
 #   * inversion: x^254 = x^2 x^4 ... x^128     -> 7 squarings + 6 muls
 # and polynomial evaluations at fixed points (Chien / Forney numerator /
-# denominator) become ONE mod-2 matmul each on the MXU.  XOR == sum mod 2,
+# denominator) become ONE mod-2 matmul each.  XOR == sum mod 2,
 # so every accumulation is an ordinary matmul followed by & 1.
 
 

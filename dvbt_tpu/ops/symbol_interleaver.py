@@ -3,7 +3,7 @@
 Reference behavior: `lib/symbol_inner_interleaver_impl.cc` [unverified —
 mount empty]; spec: EN300744 §4.3.4.2.
 
-TPU-native design: the LFSR-generated H(q) permutation and its inverse are
+Design: the LFSR-generated H(q) permutation and its inverse are
 precomputed; a frame of 68 symbols gets a static (68, n_payload) gather index
 matrix (row parity selects H vs H^-1 per the even/odd symbol rule), so the
 whole frame interleaves in one take_along_axis.  Stateless when processing

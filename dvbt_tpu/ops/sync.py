@@ -5,7 +5,7 @@ fractional CFO) and the integer-CFO / frame-sync half of
 `lib/reference_signals_impl.cc`'s `demod_reference_signals` (SURVEY.md R1/R3)
 [unverified — mount empty]; spec: EN300744 §4.4–4.6.
 
-TPU-native design (SURVEY.md §7 hard part 2): the reference's per-sample
+Design (SURVEY.md §7 hard part 2): the reference's per-sample
 streaming correlator + lock FSM becomes ONE batched pass over a capture
 block —
 

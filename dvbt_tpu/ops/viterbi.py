@@ -4,7 +4,7 @@ Reference behavior: `lib/viterbi_decoder_impl.cc` — Karn-style ACS with SSE2
 intrinsics, the reference's only SIMD kernel [unverified — mount empty];
 spec: EN300744 §4.3.3.
 
-TPU-native design (SURVEY.md §7 hard part 1): the inherently sequential ACS
+Design (SURVEY.md §7 hard part 1): the inherently sequential ACS
 recursion is broken over the time axis by **overlapped block decoding** — the
 stream is cut into independent windows of `body` steps padded by `overlap`
 warmup steps on both sides; every window decodes in parallel (windows are a
@@ -12,8 +12,8 @@ batch dimension over the 64-state ACS), warmup regions are discarded.  With
 overlap >= ~5..10 constraint lengths the result is BER-identical to a full
 Viterbi (the PAPERS.md GPU-Viterbi literature pattern).  Depunctured
 erasures contribute zero branch metric.  This module is the pure-jnp `scan`
-implementation; `kernels/viterbi_pallas.py` holds the Pallas TPU kernel with
-the same contract.
+implementation; `kernels/viterbi_triton.py` holds the Pallas (Triton) GPU
+kernel with the same contract and bit-identical output.
 
 Carried state: the last `overlap` (x, y, mask) steps of the previous block,
 used as warmup prefix so block boundaries lose nothing.
@@ -38,7 +38,7 @@ def effective_overlap(rate: str, overlap: int = DEFAULT_OVERLAP) -> int:
     """Overlap rounded up so the carried tail is both byte-aligned and
     puncture-phase-aligned (lcm of 8 and the Table-3 period).  Used by BOTH
     Viterbi implementations so the carried-state pytree shape is
-    implementation-independent (jnp on CPU, Pallas on TPU)."""
+    implementation-independent (jnp scan or the Pallas kernel)."""
     import math
     period = len(tables.PUNCTURE[rate][0])
     align = 8 * period // math.gcd(8, period)

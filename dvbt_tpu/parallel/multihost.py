@@ -1,18 +1,18 @@
 """Multi-host / multi-process scaffolding (SURVEY.md §2.4, §5.8).
 
-The reference is strictly single-process; scaling past one host is a
-TPU-native addition: `jax.distributed` federates the processes, a
+The reference is strictly single-process; scaling past one host is an
+addition here: `jax.distributed` federates the processes, a
 ``('hosts', 'chips')`` mesh places the mux-batch data-parallel axis over
-DCN x ICI, and the existing shard_map programs (parallel.sharding /
-parallel.time_sharding) run unchanged — XLA routes the metric psums over
-ICI within a host and DCN across hosts.
+the inter-host network x the intra-host links, and the existing shard_map
+programs (parallel.sharding / parallel.time_sharding) run unchanged — XLA
+routes the metric psums within a host first and across hosts second.
 
-Real DCN cannot be exercised in this environment (one chip); the
-2-process CPU smoke test (tests/test_multihost.py) validates the entry
-point, global mesh construction, cross-process data placement and a
-cross-process collective end-to-end:
+No multi-host hardware has been exercised; the 2-process CPU smoke test
+(tests/test_multihost.py) validates the entry point, global mesh
+construction, cross-process data placement and a cross-process collective
+end-to-end:
 
-    JAX_PLATFORMS=cpu (sanitized PYTHONPATH) x 2 processes
+    JAX_PLATFORMS=cpu x 2 processes
     -> jax.distributed.initialize + gloo CPU collectives
     -> global ('hosts','chips') mesh over 2x2 devices
     -> sharded DVB-T loopback step with psum'd fleet metrics.
@@ -27,11 +27,12 @@ def initialize(coordinator_address: str, num_processes: int,
                process_id: int, local_device_count: int | None = None):
     """Join (or create) a multi-process JAX cluster.
 
-    On TPU pods this is a thin wrapper over ``jax.distributed.initialize``
-    (device counts come from the runtime).  On CPU, ``local_device_count``
-    forces N virtual devices per process and selects the gloo collectives
-    backend so cross-process psum/ppermute work — the test fabric for DCN
-    behavior without hardware.
+    On accelerators this is a thin wrapper over
+    ``jax.distributed.initialize`` (device counts come from the runtime;
+    coordinator address, process count and id must be given explicitly).
+    On CPU, ``local_device_count`` forces N virtual devices per process and
+    selects the gloo collectives backend so cross-process psum/ppermute
+    work — the test fabric for inter-host behavior without hardware.
     """
     import jax
 

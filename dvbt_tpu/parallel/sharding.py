@@ -1,11 +1,13 @@
 """Multi-chip parallelism: mux-batch sharding over a device mesh.
 
 The reference is single-process; its only parallelism is GNU Radio's
-thread-per-block pipelining (SURVEY.md §2.4).  The TPU-native scaling axes:
+thread-per-block pipelining (SURVEY.md §2.4).  The multi-device scaling
+axes:
 
 * **mux batch (dp)** — independent DVB-T multiplexes (or independent time
   segments of one stream) sharded over a `('mux',)` mesh axis via shard_map;
-  zero inter-chip traffic on the data path, `psum` only for fleet metrics.
+  zero inter-device traffic on the data path, `psum` only for fleet
+  metrics.
   This is the throughput axis for "N channels in real time".
 * **time axis (sp)** — contiguous sample blocks of ONE stream across chips
   with carried-state neighbor exchange (`collective_permute`) — see
@@ -16,8 +18,6 @@ local; scaling efficiency is bounded only by XLA dispatch overheads.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +40,7 @@ def make_sharded_loopback(mode: DvbtMode, mesh: Mesh,
     step(states, packets): packets uint8 (B, P, 188) sharded over 'mux'
     -> (states', ts (B, P, 188), fleet_metrics) where B = mesh devices *
     muxes_per_device.  fleet_metrics are psum-reduced across the mesh
-    (total RS corrections / failures — the all-reduce rides ICI).
+    (total RS corrections / failures — one small all-reduce).
     """
     n_dev = mesh.devices.size
     B = n_dev * muxes_per_device
@@ -93,25 +93,13 @@ def make_sharded_loopback(mode: DvbtMode, mesh: Mesh,
 def dryrun(mode: DvbtMode, n_devices: int, muxes_per_device: int = 1):
     """Compile + execute one sharded loopback step on the available devices.
 
-    Used by __graft_entry__.dryrun_multichip (driver contract) and the
-    multi-chip tests: validates that the full chain, its carried-state
-    pytrees, and the metric collectives all shard correctly.
+    Used by __graft_entry__.dryrun_multichip and the multi-device tests:
+    validates that the full chain, its carried-state pytrees, and the
+    metric collectives all shard correctly.  Two stages, each logged
+    start/pass so a non-zero exit is attributable from the output tail:
 
-    Three stages, each logged start/pass so a non-zero exit is attributable
-    from the output tail alone (round-4 lesson: one silent SIGABRT took the
-    whole artifact down with the already-passing stages):
-
-      1. mux-DP shard_map at `mode` (the 8K flagship), two steps.
+      1. mux-DP shard_map at `mode`, two steps.
       2. ppermute time-axis halo sharding at `mode`, one step.
-      3. the explicit Pallas RDMA halo ring vs ppermute byte equality.
-         On a real TPU mesh this runs at `mode` with true Mosaic lowering.
-         On a CPU host mesh the kernel runs in TPU-interpret mode, whose
-         per-shard wall time at the 8K shape skews shard arrival past
-         XLA:CPU's hard 40 s collective-rendezvous abort on small hosts
-         (MULTICHIP_r04 rc=134, judge-root-caused) — so the CPU path runs
-         this stage at 2K QPSK: the property it proves (ring == ppermute,
-         byte-exact) is shape-independent and the 8K ppermute path is
-         already covered by stage 2 + the slow-marked CI parity test.
     """
     import time
 
@@ -121,13 +109,12 @@ def dryrun(mode: DvbtMode, n_devices: int, muxes_per_device: int = 1):
     devices = jax.devices()
     assert len(devices) >= n_devices, (
         f"need {n_devices} devices, have {len(devices)}")
-    on_cpu = jax.default_backend() == "cpu"
     from ..io import ts as tsio
     from . import time_sharding as tsh
 
     # --- stage 1: mux-DP ---------------------------------------------------
     t0 = time.monotonic()
-    _log(f"stage 1/3 mux-dp start ({mode.transmission} {mode.constellation} "
+    _log(f"stage 1/2 mux-dp start ({mode.transmission} {mode.constellation} "
          f"{mode.code_rate}, {n_devices} dev x {muxes_per_device} mux)")
     mesh = make_mux_mesh(devices[:n_devices])
     step, init_states, n_pk = make_sharded_loopback(
@@ -142,11 +129,11 @@ def dryrun(mode: DvbtMode, n_devices: int, muxes_per_device: int = 1):
     # second step re-uses the compiled program and the carried state
     states, out, fleet = step(states, pk)
     jax.block_until_ready(out)
-    _log(f"stage 1/3 mux-dp PASS ({time.monotonic() - t0:.1f}s)")
+    _log(f"stage 1/2 mux-dp PASS ({time.monotonic() - t0:.1f}s)")
 
     # --- stage 2: ppermute time-axis halo sharding -------------------------
     t0 = time.monotonic()
-    _log("stage 2/3 time-ppermute start")
+    _log("stage 2/2 time-ppermute start")
     tmesh = Mesh(np.asarray(devices[:n_devices]), ("time",))
     tstep, t_pk, carry = tsh.make_time_sharded_loopback(mode, tmesh)
     tpk = jax.device_put(
@@ -154,42 +141,5 @@ def dryrun(mode: DvbtMode, n_devices: int, muxes_per_device: int = 1):
         NamedSharding(tmesh, P("time")))
     carry, ts, tfleet = tstep(carry, tpk)
     jax.block_until_ready(ts)
-    _log(f"stage 2/3 time-ppermute PASS ({time.monotonic() - t0:.1f}s)")
-
-    # --- stage 3: Pallas RDMA halo ring == ppermute ------------------------
-    t0 = time.monotonic()
-    if on_cpu:
-        # Interpret-mode per-shard wall time on a small host serializes the
-        # shards and skews their arrival at the trailing all_gather past
-        # XLA:CPU's hard 40 s rendezvous abort (MULTICHIP_r04 rc=134; still
-        # true at 2K with 8 shards on 2 cores — measured r5).  The property
-        # this stage proves (ring == ppermute byte equality) is independent
-        # of shape AND ring size, so run it at 2K QPSK on a <=4-device ring.
-        from ..mode import MODE_2K_QPSK
-        n_ring = min(n_devices, 4)
-        _log(f"stage 3/3 ring-halo start (CPU interpret @ 2K QPSK, "
-             f"{n_ring}-device ring; larger interpret rings exceed "
-             f"XLA:CPU's 40s collective rendezvous)")
-        rmesh = Mesh(np.asarray(devices[:n_ring]), ("time",))
-        rstep2, r_pk, rcarry = tsh.make_time_sharded_loopback(
-            MODE_2K_QPSK, rmesh, halo="ring-interpret")
-        pstep2, _, pcarry = tsh.make_time_sharded_loopback(MODE_2K_QPSK,
-                                                           rmesh)
-        rpk = jax.device_put(
-            jnp.asarray(tsio.make_ts_packets(r_pk * n_ring, seed=3)),
-            NamedSharding(rmesh, P("time")))
-        rcarry, rts, _ = rstep2(rcarry, rpk)
-        pcarry, pts, _ = pstep2(pcarry, rpk)
-        jax.block_until_ready((rts, pts))
-        ref_ts = pts
-    else:
-        _log("stage 3/3 ring-halo start (TPU Mosaic @ flagship mode)")
-        rstep2, _, rcarry = tsh.make_time_sharded_loopback(
-            mode, tmesh, halo="ring")
-        rcarry, rts, _ = rstep2(rcarry, tpk)
-        jax.block_until_ready(rts)
-        ref_ts = ts
-    assert np.array_equal(np.asarray(rts), np.asarray(ref_ts)), \
-        "ring halo path diverged from ppermute path"
-    _log(f"stage 3/3 ring-halo PASS ({time.monotonic() - t0:.1f}s)")
+    _log(f"stage 2/2 time-ppermute PASS ({time.monotonic() - t0:.1f}s)")
     return out, fleet

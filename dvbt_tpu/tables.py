@@ -145,7 +145,7 @@ def rs_encode_bitmatrix() -> np.ndarray:
     RS(204,188) parity is GF(2)-linear in the message bits (GF(2^8) addition
     is xor; multiplication by a constant is a GF(2)-linear map on the 8 bits),
     so the whole systematic encoder collapses to one binary matmul that runs
-    on the MXU: ``parity_bits = (msg_bits @ M) mod 2``.
+    on device: ``parity_bits = (msg_bits @ M) mod 2``.
 
     Bit order: byte index major, bit MSB-first (bit j of byte = value
     1<<(7-j)), matching utils.bits packing.
@@ -171,7 +171,7 @@ def rs_syndrome_bitmatrix() -> np.ndarray:
     """(1632, 128) uint8 GF(2)-matrix: received-word bits -> 16 syndrome bytes.
 
     S_j = r(alpha^j) for j=0..15 where r(x) = sum_i r_i x^{203-i}; linear in
-    the received bits, hence another MXU binary matmul on device.
+    the received bits, hence another binary matmul on device.
     """
     exp, _ = gf_tables()
     M = np.zeros((RS_N * 8, RS_2T * 8), dtype=np.uint8)

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 import jax
+import jax.numpy as jnp
 
 from dvbt_tpu.io import ts as tsio
 from dvbt_tpu.mode import DvbtMode
@@ -40,10 +41,9 @@ def _tx_stream(mode, blocks, seed=3):
 def test_auto_receiver_2k_64qam_23():
     mode = DvbtMode("2k", "64qam", "2/3", "1/32")
     packets, n_pk, stream = _tx_stream(mode, 6)
-    dev = tsio.device_put_complex(stream)
-    dev = channel.apply_cfo(dev, 0.8, mode.fft_len)
+    dev = channel.apply_cfo(jnp.asarray(stream), 0.8, mode.fft_len)
     dev = channel.awgn(jax.random.PRNGKey(0), dev, 30.0)
-    stream = tsio.device_get_complex(dev)[777:]
+    stream = np.asarray(dev)[777:]
 
     arx = AutoStreamingReceiver("2k")
     reports = arx.feed(stream)

@@ -52,7 +52,7 @@ def test_builder_then_deinterleaver_roundtrip():
 
 
 def test_matmul_fft_matches_jnp_fft():
-    """The MXU two-stage Cooley-Tukey DFT must match XLA's FFT to f32
+    """The two-stage Cooley-Tukey matmul DFT must match XLA's FFT to f32
     round-off (both directions, both FFT sizes)."""
     import numpy as np
     from dvbt_tpu.ops import ofdm

@@ -61,3 +61,17 @@ def test_ts_find_sync_and_quality():
     aligned = stream[101:]
     assert native.ts_sync_quality(aligned) == 1.0
     assert native.ts_sync_quality(stream[:101 + 188 * 3]) < 1.0
+
+
+def test_library_path_is_keyed_on_source_and_flags(tmp_path, monkeypatch):
+    """A checkout must never load a library built from other source: the
+    build product's name carries a hash of ringbuffer.cc and the flags."""
+    path = native.lib_path()
+    assert path.startswith(native._BUILD_DIR)
+    src = tmp_path / "ringbuffer.cc"
+    src.write_bytes(open(native._SRC, "rb").read() + b"\n// edited\n")
+    monkeypatch.setattr(native, "_SRC", str(src))
+    assert native.lib_path() != path
+    monkeypatch.undo()
+    monkeypatch.setattr(native, "_FLAGS", native._FLAGS + ("-g",))
+    assert native.lib_path() != path

@@ -12,8 +12,8 @@ from dvbt_tpu.ops import inner_coder, viterbi
 def _roundtrip(rate, n, flip=0, seed=0, body=512, overlap=96):
     rng = np.random.default_rng(seed)
     bits = rng.integers(0, 2, size=n, dtype=np.uint8)
-    enc = inner_coder.make_inner_coder(n, rate)
-    _, coded = enc(inner_coder.init_state(), jnp.asarray(bits))
+    enc = inner_coder.make_inner_coder(n // 8, rate)
+    _, coded = enc(inner_coder.init_state(), jnp.asarray(np.packbits(bits)))
     coded = np.array(coded)  # writable copy
     if flip:
         pos = rng.choice(len(coded), size=flip, replace=False)
@@ -30,7 +30,7 @@ def _roundtrip(rate, n, flip=0, seed=0, body=512, overlap=96):
 @pytest.mark.parametrize("rate", ["1/2", "2/3", "3/4", "5/6", "7/8"])
 def test_viterbi_noiseless_exact(rate):
     period = len(tables.PUNCTURE[rate][0])
-    n = period * (4096 // period)
+    n = 8 * period * (512 // period)
     bits, out = _roundtrip(rate, n)
     assert np.array_equal(out, bits)
 
@@ -45,8 +45,8 @@ def test_viterbi_state_carry_matches_single_block():
     rate, n = "2/3", 4096
     rng = np.random.default_rng(7)
     bits = rng.integers(0, 2, size=n, dtype=np.uint8)
-    enc = inner_coder.make_inner_coder(n, rate)
-    _, coded = enc(inner_coder.init_state(), jnp.asarray(bits))
+    enc = inner_coder.make_inner_coder(n // 8, rate)
+    _, coded = enc(inner_coder.init_state(), jnp.asarray(np.packbits(bits)))
     dep = inner_coder.make_depuncture(n, rate)
     x, y, xm, ym = (np.asarray(a) for a in dep(coded * np.uint8(15)))
     xm = np.broadcast_to(xm, x.shape).astype(np.uint8)

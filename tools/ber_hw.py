@@ -1,9 +1,8 @@
-"""On-hardware BER points (VERDICT r2 item 5): one point per waterfall,
-measured on the real TPU, to turn the "CPU curves are bit-exact with TPU"
-inference into a measurement.  Appends device-tagged JSONL lines next to
-the CPU-measured curves in docs/.
+"""On-card BER points: one point per waterfall, measured on the GPU, to
+check the CPU-measured curves in docs/ against the card.  Appends
+platform/device_kind-tagged JSONL lines next to the CPU curves.
 
-Run:  timeout 3000 python tools/ber_hw.py    (one TPU process at a time)
+Run on the card:  python tools/ber_hw.py    (one process per card)
 """
 
 from __future__ import annotations
@@ -46,7 +45,7 @@ def main():
         r["wall_s"] = round(time.time() - t0, 1)
         line = json.dumps(r)
         print(f"{fname}: {line}", flush=True)
-        if r.get("device") == "tpu":
+        if r.get("platform") == "gpu":
             with open(os.path.join(DOCS, fname), "a") as f:
                 f.write(line + "\n")
     return 0

@@ -4,7 +4,7 @@ for the two headline modes (hard + soft), plus AWGN waterfalls for 16-QAM
 
 Writes docs/ber_*.jsonl (one JSON line per SNR point, same schema as the
 round-3 AWGN files, plus "profile"/"demap" tags).  Runs on the forced-CPU
-backend — bit-exact with TPU per the bench parity gates.
+backend.
 
 Usage: python tools/ber_r4.py [curve ...]   (default: all)
 """

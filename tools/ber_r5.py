@@ -3,8 +3,7 @@ waterfall (8K 16-QAM 3/4, hard + soft) and the hierarchical LP SOFT dual
 waterfall (the round-4 hierarchical curve was hard-only).
 
 Writes docs/ber_*.jsonl in the same schema as the round-3/4 files.
-Runs on the forced-CPU backend — bit-exact with TPU per the bench parity
-gates.
+Runs on the forced-CPU backend.
 
 Usage: python tools/ber_r5.py [curve ...]   (default: all)
 """

@@ -1,5 +1,4 @@
-"""Hardware validation sweep (VERDICT r1 item 6): byte-exact TX->RX
-loopback on the real TPU for
+"""On-card validation sweep: byte-exact TX->RX loopback on the GPU for
 
   * the full 2K constellation x code-rate grid (15 modes),
   * a guard-interval sweep at 2K 64-QAM 2/3,
@@ -9,11 +8,12 @@ loopback on the real TPU for
 Each mode streams TWO carried-state blocks through the symbol-aligned
 receiver and checks the recovered TS byte-exactly (11-packet Forney delay)
 with zero RS corrections consumed — i.e. the decode is exact BEFORE the RS
-safety net, so a Pallas lowering or convention regression cannot hide
-behind RS's 8-byte budget.
+safety net, so a kernel or convention regression cannot hide behind RS's
+8-byte budget.
 
-Writes docs/MODE_GRID_HW.json.  Run:  timeout 3500 python tools/mode_grid_hw.py
-(one TPU process at a time; compiles are cached in JAX_COMPILATION_CACHE_DIR).
+Writes docs/MODE_GRID_HW.json (tagged with platform and device_kind).
+Run on the card:  python tools/mode_grid_hw.py   (one process per card;
+compiles are cached by dvbt_tpu.utils.compile_cache).
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
 
 DELAY = 11  # outer-deinterleaver packet delay
 
@@ -80,8 +79,8 @@ def run_mode(mode, n_blocks: int = 2) -> dict:
 def main():
     import jax
 
-    from bench import _enable_compile_cache
-    _enable_compile_cache()
+    from dvbt_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from dvbt_tpu.mode import DvbtMode
 
@@ -117,7 +116,8 @@ def main():
 
     n_ok = sum(1 for r in results.values() if r.get("byte_exact"))
     artifact = {
-        "device": str(jax.devices()[0]),
+        "platform": jax.devices()[0].platform,
+        "device_kind": jax.devices()[0].device_kind,
         "modes_green": n_ok,
         "modes_total": len(results),
         "wall_s": round(time.time() - t_all, 1),
